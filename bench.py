@@ -1,24 +1,24 @@
-"""Benchmark harness: Mgzip encode throughput on real TPU hardware.
+"""Benchmark harness: device encode throughput of the Mgzip encoder.
 
-Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": "GB/s", "vs_baseline": N}
+    python bench.py [LEVEL]                      # the ladder below, at LEVEL (3)
+    python bench.py --stage BATCH BLOCK REPS [LEVEL]
 
-Degraded-mode ladder (round-3 fix for two rc=124 rounds, VERDICT.md #1):
-the supervisor process forks ONE worker that climbs a config ladder
-(small -> flagship), emitting a JSON line per completed stage. The
-supervisor keeps the best (largest-config) result and prints it when
-the worker finishes, when the internal deadline expires, or when the
-driver sends SIGTERM/SIGINT — so a remote-compile-service outage mid
--flagship still yields an honest number from an earlier stage.
+Needs a GPU: a run that finds another platform fails. Every result line
+names the device it ran on (platform, device_kind, device count).
 
-Methodology (honest — round 1's async-dispatch timing was retracted, see
-scripts/profile_stages.log): R iterations of the full batched encoder are
-chained INSIDE one jitted fori_loop with a one-byte data dependency
-between iterations, so XLA can neither elide nor overlap them; one scalar
-fetch forces the chain. Per-iteration time is pure device compute.
-Correctness is verified in the same run: one batch's members are pulled
-back and gzip-decoded against the input, and the compressed size is
-compared against CPython zlib level-3 on the same corpus.
+The supervisor process stays off JAX and starts ONE worker, the only
+process that opens the card. The worker climbs a config ladder
+(small -> flagship), printing a JSON line per completed stage; the
+supervisor prints the largest completed stage as the last line, also on
+SIGTERM or when its deadline (``GZP_BENCH_BUDGET_S``) passes.
+
+Method: R iterations of the full batched encoder are chained INSIDE one
+jitted fori_loop with a one-byte data dependency between iterations, so
+XLA can neither elide nor overlap them; one scalar fetch forces the
+chain. Per-iteration time is device compute on device-resident data.
+Correctness is checked in the same run: sampled members of one batch are
+gzip-decoded against the input (any mismatch fails the stage), and the
+compressed size is compared with CPython zlib at the same level.
 
 Corpus: the reference benches on ~550 MB of shakespeare (reference
 benches/bench.rs:120-150, file stripped from the mirror); an
@@ -36,38 +36,20 @@ import time
 
 import numpy as np
 
-TARGET_GBPS = 5.0
-
-# ladder stages: (batch, block_size, reps, staged) in ascending cost; the
-# last stages are the flagship configs (reference benches 128 KiB blocks
-# at level 3, benches/bench.rs:120-150). The 64x128KiB MONOLITH twice
-# crashed the remote XLA service ("Unexpected EOF" after ~1 h,
-# scripts/prime_r3.log), so batches >= 64 run the STAGED encoder —
-# two separately-jitted programs (match | parse+emit) timed as the sum
-# of two per-stage chained loops (round-4 task 3). Every earlier
-# stage is banked before attempting the next.
-# NOTE round 4: compile-service health gates the big rungs. Mid-round,
-# a batch-64 MATCH-ONLY stage hung 109 minutes while control compiles
-# ran in seconds (scripts/prime64_r4.log); two hours later the batch-64
-# MONOLITH compiled in 49 s and validated clean at 0.0905 GB/s. The
-# ladder climbs 8→64 and every completed rung is banked before the
-# next, so a bad service day degrades gracefully to the largest rung
-# that compiles; a hung compile wait cannot be interrupted from Python
-# (SIGALRM fires only when the blocking call returns) — the supervisor
-# budget SIGTERM is the real bound.
+# ladder stages: (batch, block_size, reps) in ascending cost; the last is
+# the flagship config (reference benches 128 KiB blocks at level 3,
+# benches/bench.rs:120-150)
 LADDER = [
-    (8, 32768, 4, False),
-    (16, 131072, 4, False),
-    (32, 131072, 8, False),
-    (48, 131072, 8, False),
-    (56, 131072, 8, False),
-    (64, 131072, 8, False),
+    (8, 32768, 4),
+    (16, 131072, 4),
+    (32, 131072, 8),
+    (64, 131072, 8),
 ]
 
 
-def make_corpus(nbytes: int) -> bytes:
+def make_corpus(nbytes: int, seed: int = 1234) -> bytes:
     """Deterministic shakespeare-like English text."""
-    rng = np.random.default_rng(1234)
+    rng = np.random.default_rng(seed)
     vocab = (
         "the quick brown fox jumps over lazy dog and all that glitters is not gold "
         "to be or not to be that is the question whether tis nobler in the mind to "
@@ -98,50 +80,34 @@ def make_corpus(nbytes: int) -> bytes:
 
 
 def _validate_members(out, out_len, data, batch, label):
-    """gzip-decode sampled members. Raises on real corruption; the known
-    marginal-device signature — a SINGLE flipped literal in an otherwise
-    valid stream (ARCHITECTURE.md §9, scripts/debug_b32.py) — is
-    tolerated and REPORTED, not hidden: production output is guarded by
-    ParCompress(verify=True), and discarding a whole rung's throughput
-    for a 1-byte-per-4MiB device anomaly would measure the device lottery
-    instead of the encoder. Block 0 byte 0 carries the timing chain's
+    """gzip-decode sampled members against their input blocks; any
+    difference raises. Block 0 byte 0 carries the timing chain's
     perturbation and is skipped."""
     import gzip as _gzip
-    import zlib as _zlib
 
-    anomalies = []
     for i in range(0, batch, max(batch // 8, 1)):
-        member = out[i, : out_len[i]].tobytes()
+        plain = _gzip.decompress(out[i, : out_len[i]].tobytes())
         want = data[i].tobytes()
-        try:
-            plain = _gzip.decompress(member)
-            ok = True
-        except Exception:
-            ok = False
-        if ok:
-            if i == 0:
-                plain, want = plain[1:], want[1:]
-            assert plain == want, f"{label}: content mismatch at block {i}"
-            continue
-        # inflate without the CRC gate and characterize the difference
-        d = _zlib.decompressobj(-15)
-        plain = d.decompress(member[20:-8]) + d.flush()
         if i == 0:
             plain, want = plain[1:], want[1:]
-        if len(plain) != len(want):
-            raise AssertionError(f"{label}: bad length at block {i}")
-        diffs = [k for k, (a, b) in enumerate(zip(plain, want)) if a != b]
-        if not 1 <= len(diffs) <= 2:
-            raise AssertionError(
-                f"{label}: block {i} differs at {len(diffs)} positions"
-            )
-        anomalies.append({"block": i, "byte_positions": diffs})
-    return anomalies
+        if plain != want:
+            raise AssertionError(f"{label}: content mismatch at block {i}")
+
+
+def device_info() -> dict:
+    """The device the numbers come from; raises unless it is a GPU."""
+    import jax
+
+    devices = jax.devices()
+    d = devices[0]
+    if d.platform != "gpu":
+        raise RuntimeError(f"bench needs a GPU; JAX found {d.platform!r}")
+    return {"platform": d.platform, "device_kind": d.device_kind,
+            "device_count": len(devices)}
 
 
 def run_stage(batch: int, block_size: int, reps: int, level: int) -> dict:
     """Compile + time + validate one ladder stage. Returns the result dict."""
-    import gzip as _gzip
     import zlib as _zlib
 
     import jax
@@ -150,11 +116,6 @@ def run_stage(batch: int, block_size: int, reps: int, level: int) -> dict:
     from gzp_tpu.ops.deflate_kernel import DeflateEncodeConfig, encode_deflate_blocks
 
     cfg = DeflateEncodeConfig.for_level(block_size, "mgzip", "none", level)
-    if os.environ.get("GZP_BENCH_PACK"):
-        import dataclasses
-
-        cfg = dataclasses.replace(cfg, pack=os.environ["GZP_BENCH_PACK"])
-
     batch_bytes = batch * block_size
     corpus = make_corpus(batch_bytes)
     data = np.frombuffer(corpus, np.uint8).reshape(batch, block_size)
@@ -166,12 +127,8 @@ def run_stage(batch: int, block_size: int, reps: int, level: int) -> dict:
     df = jax.device_put(finals)
     jax.block_until_ready(dd)
 
-    # Timing chain does NOT carry the framed output buffers through the
-    # loop (round-5 fix: the carried [B, out_bytes] arrays cost ~25% of
-    # measured throughput — 84.7 vs 61.8 ms/batch at 64x128KiB); a
-    # separate jit fetches outputs for validation. The second compile
-    # is affordable since the Pallas kernels cut compiles to ~25 s
-    # (scripts/probe_r5_pp64.log; was minutes-to-hours, round 4).
+    # the chain does not carry the framed output buffers through the
+    # loop; a separate jit fetches outputs for validation
     @jax.jit
     def chain(d):
         def body(_, carry):
@@ -200,184 +157,32 @@ def run_stage(batch: int, block_size: int, reps: int, level: int) -> dict:
     out = np.asarray(res["out"])
     out_len = np.asarray(res["out_len"])
     total_out = int(out_len.sum())
-    anomalies = _validate_members(out, out_len, data, batch, f"{batch}x{block_size}")
+    _validate_members(out, out_len, data, batch, f"{batch}x{block_size}")
 
     zlib_size = sum(
         len(_zlib.compress(data[i].tobytes(), level)) for i in range(batch)
     )
-
-    extra = {
-        "batch_blocks": batch,
-        "block_size": block_size,
-        "level": level,
-        "per_batch_ms": round(best * 1e3, 2),
-        "compile_s": round(compile_s, 1),
-        "compression_ratio": round(batch_bytes / total_out, 3),
-        f"size_vs_zlib{level}": round(total_out / zlib_size, 3),
-        "timing": "chained fori_loop, scalar-fetch forced; device compute only",
-    }
-    if anomalies:
-        extra["validation_anomaly"] = {
-            "single_flipped_literals": anomalies,
-            "note": "known marginal-device single-bit signature; "
-            "see ARCHITECTURE.md §9 and ParCompress(verify=True)",
-        }
     return {
-        "metric": "mgzip_encode_device_throughput_per_chip",
+        "metric": "mgzip_encode_device_throughput",
         "value": round(gbps, 4),
         "unit": "GB/s",
-        "vs_baseline": round(gbps / TARGET_GBPS, 4),
-        "extra": extra,
-    }
-
-
-def run_stage_staged(batch: int, block_size: int, reps: int, level: int) -> dict:
-    """Time the 2-program staged encoder (match | parse+emit): each
-    stage gets its own chained fori_loop (digest dependency + scalar
-    fetch); the reported per-batch time is the SUM of stage times — the
-    honest serial cost, denying cross-stage overlap while keeping the
-    measured intra-program overlap of parse+emit+pack
-    (scripts/profile_r4_b16.log). Bounds compile-program size so
-    batch >= 64 becomes reachable (scripts/prime_r3.log)."""
-    import gzip as _gzip
-    import zlib as _zlib
-
-    import jax
-    import jax.numpy as jnp
-
-    from gzp_tpu.ops.deflate_kernel import (
-        DeflateEncodeConfig,
-        emit_stage,
-        match_stage,
-        parse_stage,
-    )
-
-    cfg = DeflateEncodeConfig.for_level(block_size, "mgzip", "none", level)
-    if os.environ.get("GZP_BENCH_PACK"):
-        import dataclasses
-
-        cfg = dataclasses.replace(cfg, pack=os.environ["GZP_BENCH_PACK"])
-    batch_bytes = batch * block_size
-    data = np.frombuffer(make_corpus(batch_bytes), np.uint8).reshape(batch, block_size)
-    lengths = np.full((batch,), block_size, np.int32)
-    finals = np.zeros((batch,), bool)
-
-    dd = jax.device_put(data)
-    dl = jax.device_put(lengths)
-    df = jax.device_put(finals)
-    jax.block_until_ready(dd)
-
-    def digest(x):
-        v = x.astype(jnp.uint32)
-        return jnp.sum(v ^ (v >> 7), dtype=jnp.uint32)
-
-    @jax.jit
-    def chain1(d):
-        def body(_, carry):
-            salt, x, e, ml, md = carry
-            x = x.at[0, 0].set((x[0, 0].astype(jnp.uint32) ^ (salt & 1)).astype(jnp.uint8))
-            e, ml, md = match_stage(cfg, x, dl)
-            return digest(ml) ^ digest(md) ^ salt, x, e, ml, md
-
-        z = jnp.zeros_like(dd)
-        zi = jnp.zeros(dd.shape, jnp.int32)
-        salt, _, e, ml, md = jax.lax.fori_loop(
-            0, reps, body, (jnp.uint32(0), d, z, zi, zi)
-        )
-        return salt, e, ml, md
-
-    @jax.jit
-    def chain2(d, ml, md):
-        # dict_size == 0 here, so ext IS the data; the perturbed byte
-        # must reach both the literal stream and the member CRC or the
-        # validation decode would fail its CRC check
-        def body(_, carry):
-            salt, x, out, out_len = carry
-            x = x.at[0, 0].set((x[0, 0].astype(jnp.uint32) ^ (salt & 1)).astype(jnp.uint8))
-            # tie the parse to the carried salt or XLA hoists the whole
-            # loop-invariant parse out of the timing loop (the perturbed
-            # value is < min_emit so the parse result is unchanged)
-            ml2 = ml.at[0, 0].set(ml[0, 0] ^ (salt & 1).astype(jnp.int32))
-            marked, l = parse_stage(cfg, ml2, dl)
-            res = emit_stage(cfg, x, x, dl, df, marked, l, md)
-            tot = jnp.sum(res["out_len"]).astype(jnp.uint32)
-            return tot ^ res["check"][0] ^ salt, x, res["out"], res["out_len"]
-
-        out0 = jnp.zeros((batch, cfg.out_bytes), jnp.uint8)
-        len0 = jnp.zeros((batch,), jnp.int32)
-        salt, _, out, out_len = jax.lax.fori_loop(
-            0, reps, body, (jnp.uint32(0), d, out0, len0)
-        )
-        return salt, out, out_len
-
-    times = []
-    compile_total = 0.0
-
-    t0 = time.perf_counter()
-    r1 = chain1(dd)
-    int(r1[0])
-    compile_total += time.perf_counter() - t0
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        int(chain1(dd)[0])
-        best = min(best, (time.perf_counter() - t0) / reps)
-    times.append(best)
-    _, _ext, ml, md = chain1(dd)
-
-    t0 = time.perf_counter()
-    r2 = chain2(dd, ml, md)
-    int(r2[0])
-    compile_total += time.perf_counter() - t0
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        int(chain2(dd, ml, md)[0])
-        best = min(best, (time.perf_counter() - t0) / reps)
-    times.append(best)
-    _, res_out, res_len = chain2(dd, ml, md)
-
-    per_batch = sum(times)
-    gbps = batch_bytes / per_batch / 1e9
-
-    out = np.asarray(res_out)
-    out_len = np.asarray(res_len)
-    total_out = int(out_len.sum())
-    anomalies = _validate_members(
-        out, out_len, data, batch, f"staged {batch}x{block_size}"
-    )
-
-    zlib_size = sum(len(_zlib.compress(data[i].tobytes(), 3)) for i in range(batch))
-
-    extra = {
-        "batch_blocks": batch,
-        "block_size": block_size,
-        "level": level,
-        "per_batch_ms": round(per_batch * 1e3, 2),
-        "stage_ms": [round(t * 1e3, 2) for t in times],
-        "compile_s": round(compile_total, 1),
-        "compression_ratio": round(batch_bytes / total_out, 3),
-        "size_vs_zlib3": round(total_out / zlib_size, 3),
-        "timing": "2-stage pipeline (match | parse+emit), per-stage chained fori_loop, summed",
-    }
-    if anomalies:
-        extra["validation_anomaly"] = {
-            "single_flipped_literals": anomalies,
-            "note": "known marginal-device single-bit signature; "
-            "see ARCHITECTURE.md §9 and ParCompress(verify=True)",
-        }
-    return {
-        "metric": "mgzip_encode_device_throughput_per_chip",
-        "value": round(gbps, 4),
-        "unit": "GB/s",
-        "vs_baseline": round(gbps / TARGET_GBPS, 4),
-        "extra": extra,
+        "device": device_info(),
+        "extra": {
+            "batch_blocks": batch,
+            "block_size": block_size,
+            "level": level,
+            "per_batch_ms": round(best * 1e3, 2),
+            "compile_s": round(compile_s, 1),
+            "compression_ratio": round(batch_bytes / total_out, 3),
+            f"size_vs_zlib{level}": round(total_out / zlib_size, 3),
+            "timing": "chained fori_loop, scalar-fetch forced; device compute only",
+        },
     }
 
 
 def measure_snappy(batch: int = 64, block: int = 65536, reps: int = 8) -> dict:
     """Snappy-frame encode throughput on device (the reference benches
-    gzip AND snappy, benches/bench.rs:120-150; VERDICT r4 missing #4).
+    gzip AND snappy, benches/bench.rs:120-150).
     Same dispatch-proof chained-fori timing as the mgzip ladder; frames
     validated with the host frame-decoder oracle."""
     import jax
@@ -416,7 +221,7 @@ def measure_snappy(batch: int = 64, block: int = 65536, reps: int = 8) -> dict:
         best = min(best, (time.perf_counter() - t0) / reps)
     gbps = total / best / 1e9
 
-    # validation: one un-chained encode (second compile, ~25 s Pallas)
+    # validation: one un-chained encode
     res = jax.jit(lambda d: encode_snappy_blocks(cfg, d, lengths, finals))(dd)
     out = np.asarray(res["out"])
     out_len = np.asarray(res["out_len"])
@@ -479,105 +284,30 @@ def measure_decode() -> dict:
 
 
 def worker(level: int) -> None:
-    """Climb the ladder, printing one JSON line per completed stage.
-    Each stage runs under SIGALRM so one hung remote compile (the
-    batch-64 failure mode, scripts/prime64_r4.log) can't silently eat
-    the whole budget."""
-    import signal as _signal
-
+    """Climb the ladder, printing one JSON line per completed stage."""
     from gzp_tpu.utils.testing import enable_compilation_cache
 
-    class _StageTimeout(Exception):
-        pass
-
-    def _alarm(_s, _f):
-        raise _StageTimeout()
-
-    _signal.signal(_signal.SIGALRM, _alarm)
-    stage_budget = int(os.environ.get("GZP_STAGE_TIMEOUT_S", "2100"))
-
+    dev = device_info()  # fails the run before any stage without a GPU
     enable_compilation_cache()
-    # decode first: host-only, seconds, and must not be lost to a
-    # remote-compile stall later in the ladder
-    try:
-        print(json.dumps({"decode_info": measure_decode()}), flush=True)
-    except Exception as e:  # pragma: no cover
-        print(json.dumps({"stage_error": f"decode: {e}"[:300]}), flush=True)
-    # snappy rung (round 5): one bounded compile; the reference benches
-    # gzip AND snappy (benches/bench.rs:120-150)
-    try:
-        _signal.alarm(min(stage_budget, 900))
-        print(json.dumps({"snappy_info": measure_snappy()}), flush=True)
-    except _StageTimeout:
-        print(json.dumps({"stage_error": "snappy: stage timeout"}), flush=True)
-    except Exception as e:  # pragma: no cover
-        print(json.dumps({"stage_error": f"snappy: {e}"[:300]}), flush=True)
-    finally:
-        _signal.alarm(0)
-    for batch, block_size, reps, staged in LADDER:
-        try:
-            _signal.alarm(stage_budget)
-            if staged:
-                res = run_stage_staged(batch, block_size, reps, level)
-            else:
-                res = run_stage(batch, block_size, reps, level)
-        except _StageTimeout:
-            print(
-                json.dumps({"stage_error": f"{batch}x{block_size}: stage timeout"}),
-                flush=True,
-            )
-            continue
-        except Exception as e:  # pragma: no cover - stage failure path
-            print(
-                json.dumps({"stage_error": f"{batch}x{block_size}: {e}"[:500]}),
-                flush=True,
-            )
-            continue
-        finally:
-            _signal.alarm(0)
-        print(json.dumps(res), flush=True)
-    # level-6 rung (round 5): the suffix-matcher Pallas path — reported
-    # as info alongside the level-3 headline. Runs LAST so a slow
-    # compile-service day can't crowd out the flagship ladder.
-    try:
-        _signal.alarm(min(stage_budget, 1200))
-        r6 = run_stage(64, 131072, 8, 6)
-        print(
-            json.dumps(
-                {
-                    "level6_info": {
-                        "gbps": r6["value"],
-                        "batch": 64,
-                        "block": 131072,
-                        "compression_ratio": r6["extra"]["compression_ratio"],
-                        "size_vs_zlib6": r6["extra"]["size_vs_zlib6"],
-                        "compile_s": r6["extra"]["compile_s"],
-                    }
-                }
-            ),
-            flush=True,
-        )
-    except _StageTimeout:
-        print(json.dumps({"stage_error": "level6: stage timeout"}), flush=True)
-    except Exception as e:  # pragma: no cover
-        print(json.dumps({"stage_error": f"level6: {e}"[:300]}), flush=True)
-    finally:
-        _signal.alarm(0)
+    # decode first: host-only, and cheap
+    print(json.dumps({"decode_info": {**measure_decode(), "device": dev}}), flush=True)
+    print(json.dumps({"snappy_info": {**measure_snappy(), "device": dev}}), flush=True)
+    for batch, block_size, reps in LADDER:
+        print(json.dumps(run_stage(batch, block_size, reps, level)), flush=True)
 
 
 def supervise(level: int) -> None:
-    """Fork the worker; keep the largest-config completed result; always
-    print exactly one JSON line, even on SIGTERM or deadline."""
+    """Start the worker; keep the largest-config completed result; always
+    print exactly one JSON line last, even on SIGTERM or deadline."""
     deadline = time.time() + float(os.environ.get("GZP_BENCH_BUDGET_S", "3000"))
     best: dict | None = None
-    decode_info: dict | None = None
-    snappy_info: dict | None = None
+    info: dict = {}
     errors: list[str] = []
 
     proc = subprocess.Popen(
         [sys.executable, "-u", os.path.abspath(__file__), "--worker", str(level)],
         stdout=subprocess.PIPE,
-        stderr=subprocess.DEVNULL,
+        stderr=subprocess.PIPE,
         text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)),
     )
@@ -585,20 +315,22 @@ def supervise(level: int) -> None:
     def finish(*_a):
         try:
             proc.kill()
+            err = proc.stderr.read()
         except Exception:
-            pass
+            err = ""
+        if err.strip():
+            errors.append(err.strip().splitlines()[-1][:500])
         if best is not None:
             out = dict(best)
-            out.setdefault("extra", {})["stage_errors"] = errors[:3]
+            out.setdefault("extra", {}).update(info, stage_errors=errors[:3])
             print(json.dumps(out), flush=True)
             os._exit(0)
         print(
             json.dumps(
                 {
-                    "metric": "mgzip_encode_device_throughput_per_chip",
+                    "metric": "mgzip_encode_device_throughput",
                     "value": 0.0,
                     "unit": "GB/s",
-                    "vs_baseline": 0.0,
                     "extra": {"error": "no ladder stage completed", "stage_errors": errors[:3]},
                 }
             ),
@@ -615,6 +347,7 @@ def supervise(level: int) -> None:
     sel.register(proc.stdout, selectors.EVENT_READ)
     while True:
         if time.time() > deadline:
+            errors.append("deadline passed")
             finish()
         if not sel.select(timeout=5.0):
             if proc.poll() is not None:
@@ -623,76 +356,31 @@ def supervise(level: int) -> None:
         line = proc.stdout.readline()
         if not line:
             finish()
-        line = line.strip()
-        if not line:
-            continue
         try:
             res = json.loads(line)
         except json.JSONDecodeError:
             continue
-        if "stage_error" in res:
-            errors.append(res["stage_error"])
-            _audit(errors, best)  # persist partial progress for post-mortems
-            continue
-        if "decode_info" in res:
-            decode_info = res["decode_info"]
-            if best is not None:
-                best.setdefault("extra", {})["decode_native"] = decode_info
-            _audit(errors, best)
-            continue
-        if "snappy_info" in res:
-            snappy_info = res["snappy_info"]
-            if best is not None:
-                best.setdefault("extra", {})["snappy"] = snappy_info
-            _audit(errors, best)
-            continue
-        if "level6_info" in res:
-            if best is not None:
-                best.setdefault("extra", {})["level6"] = res["level6_info"]
-            _audit(errors, best)
-            continue
-        if decode_info is not None:
-            res.setdefault("extra", {})["decode_native"] = decode_info
-        if snappy_info is not None:
-            res.setdefault("extra", {})["snappy"] = snappy_info
-        if best is None or (
-            res["extra"]["batch_blocks"] * res["extra"]["block_size"]
-            >= best["extra"]["batch_blocks"] * best["extra"]["block_size"]
-        ):
+        for key in ("decode_info", "snappy_info"):
+            if key in res:
+                info[key.removesuffix("_info")] = res[key]
+        if "metric" in res:
             best = res
-        _audit(errors, best)
-
-
-def _audit(errors: list[str], best: dict | None) -> None:
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "bench_partial.json")
-    try:
-        with open(path, "w") as f:
-            json.dump({"best": best, "errors": errors, "t": time.time()}, f)
-    except OSError:
-        pass
+        print(line.strip(), flush=True)
 
 
 def main() -> None:
-    # A/B hook for the §9 anomaly bisects: force full-precision matmuls
-    if os.environ.get("GZP_MATMUL_PRECISION"):
-        import jax
-
-        jax.config.update(
-            "jax_default_matmul_precision", os.environ["GZP_MATMUL_PRECISION"]
-        )
     args = sys.argv[1:]
     if args and args[0] == "--worker":
         worker(int(args[1]) if len(args) > 1 else 3)
         return
     if args and args[0] == "--stage":
-        # direct single-stage run: bench.py --stage BATCH BLOCK REPS [LEVEL] [staged]
         from gzp_tpu.utils.testing import enable_compilation_cache
 
+        device_info()
         enable_compilation_cache()
         b, bs, reps = int(args[1]), int(args[2]), int(args[3])
         level = int(args[4]) if len(args) > 4 else 3
-        fn = run_stage_staged if (len(args) > 5 and args[5] == "staged") else run_stage
-        print(json.dumps(fn(b, bs, reps, level)))
+        print(json.dumps(run_stage(b, bs, reps, level)))
         return
     level = int(args[0]) if args else 3
     supervise(level)

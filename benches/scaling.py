@@ -1,8 +1,6 @@
-"""Weak-scaling measurement on the virtual CPU mesh (VERDICT round-4
-task 6): fixed per-device batch, devices ∈ {1, 2, 4, 8}, steady-state
-timing (compile + warmup discarded) — replaces the compile-dominated
-encode rows of benches/sweep_cpu_r3.log, which showed no scaling because
-they timed compiles.
+"""Weak-scaling measurement on the virtual CPU mesh: fixed per-device
+batch, devices ∈ {1, 2, 4, 8}, steady-state timing (compile + warmup
+discarded).
 
 The dev host has very few physical cores (`nproc` is printed into the
 log); virtual CPU devices beyond the physical core count time-slice, so
@@ -87,8 +85,8 @@ def main():
 
     # control: XLA:CPU already multithreads ONE device across all cores,
     # so raw weak scaling conflates sharding overhead with core
-    # oversubscription. The meaningful number for the TPU analogy (one
-    # chip per device, truly parallel) is sharded time vs SINGLE-device
+    # oversubscription. The meaningful number for the accelerator analogy
+    # (one card per device, truly parallel) is sharded time vs SINGLE-device
     # time on the same total batch: their ratio isolates the cost the
     # sharded dispatch itself adds.
     print("\nsharding-overhead control (same total work, 1 device vs N):")

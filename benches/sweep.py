@@ -3,8 +3,8 @@
 gzip + snappy encode across parallelism degrees on the synthesized
 corpus, plus block-format decode. Prints one JSON line per config.
 
-Run on TPU:   python benches/sweep.py --size-mb 64
-Run on CPU:   JAX_PLATFORMS unset won't help — pass --cpu.
+Run on the default device:   python benches/sweep.py --size-mb 64
+Run on virtual CPU devices:  python benches/sweep.py --cpu
 """
 
 import argparse
@@ -36,7 +36,7 @@ def main() -> None:
     ap.add_argument("--formats", nargs="*", default=["gzip", "snappy", "mgzip", "bgzf"])
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--device-decode", action="store_true",
-                    help="also sweep the TPU batch-inflate decode backend")
+                    help="also sweep the device batch-inflate decode backend")
     ap.add_argument("--decode-only", action="store_true")
     args = ap.parse_args()
 

@@ -1,12 +1,12 @@
-"""gzp_tpu — a TPU-native parallel block compression framework.
+"""gzp_tpu — parallel block compression on JAX accelerators.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of the
+A from-scratch JAX/XLA reimplementation of the capabilities of the
 Rust library `gzp <https://github.com/sstadick/gzp>`_: parallel compression
 of Gzip / Zlib / raw Deflate / Snappy-frame / Mgzip / BGZF streams (and
 parallel decompression of the block-framed formats) behind a streaming
 writer/reader API, with per-block checksums combined pigz-COMB style.
 Blocks are compressed data-parallel as lanes of batched XLA programs and
-sharded across TPU meshes instead of OS threads.
+sharded across device meshes instead of OS threads.
 
 Example (executable — enforced by tests/test_docs.py, the analog of the
 reference's doc-tests on its public entry points, reference src/lib.rs:25-72):

@@ -150,7 +150,7 @@ def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
 # the base for building device-side operator tables.
 # ---------------------------------------------------------------------------
 
-_TABLE_CACHE: dict[int, np.ndarray] = {}
+_TABLE_CACHE: dict[object, np.ndarray] = {}
 
 
 def crc_table(poly: int) -> np.ndarray:
@@ -168,13 +168,47 @@ def crc_table(poly: int) -> np.ndarray:
     return crc
 
 
+_LANE = 256  # bytes per lane of the lane-parallel update
+
+
+def _zero_advance_tables(poly: int, nbytes: int) -> np.ndarray:
+    """``[4, 256]`` tables advancing a raw register past ``nbytes`` zero
+    bytes: ``adv(r) = T0[r & 255] ^ T1[(r >> 8) & 255] ^ ...``."""
+    key = (poly, nbytes)
+    tabs = _TABLE_CACHE.get(key)
+    if tabs is None:
+        tab = crc_table(poly)
+        shifts = 8 * np.arange(4, dtype=np.uint32)[:, None]
+        r = np.arange(256, dtype=np.uint32)[None, :] << shifts
+        for _ in range(nbytes):
+            r = (r >> np.uint32(8)) ^ tab[r & np.uint32(0xFF)]
+        tabs = _TABLE_CACHE[key] = r
+    return tabs
+
+
 def _crc_update_raw(state: int, data: bytes | np.ndarray, poly: int) -> int:
-    """Advance a raw (unconditioned) CRC register over data bytes."""
+    """Advance a raw (unconditioned) CRC register over data bytes.
+
+    Full ``_LANE``-byte lanes are scanned in parallel from a zero register
+    (the register is linear over GF(2)), then folded in order:
+    ``reg = advance(reg, _LANE) ^ lane_reg``. The tail is scanned
+    byte by byte."""
     tab = crc_table(poly)
     arr = np.frombuffer(bytes(data), dtype=np.uint8)
     crc = np.uint32(state)
-    # numpy scalar loop; fine for host fallback paths (small inputs).
-    for b in arr:
+    nlanes = len(arr) // _LANE
+    if nlanes:
+        lanes = arr[: nlanes * _LANE].reshape(nlanes, _LANE)
+        reg = np.zeros(nlanes, np.uint32)
+        for col in lanes.T:
+            reg = (reg >> np.uint32(8)) ^ tab[(reg ^ col) & np.uint32(0xFF)]
+        adv = _zero_advance_tables(poly, _LANE)
+        for lane_reg in reg:
+            crc = (
+                adv[0, crc & 0xFF] ^ adv[1, (crc >> 8) & 0xFF]
+                ^ adv[2, (crc >> 16) & 0xFF] ^ adv[3, crc >> 24] ^ lane_reg
+            )
+    for b in arr[nlanes * _LANE :]:
         crc = (crc >> np.uint32(8)) ^ tab[(crc ^ b) & np.uint32(0xFF)]
     return int(crc)
 

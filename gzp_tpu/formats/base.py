@@ -1,7 +1,7 @@
 """Format abstraction: how streams and blocks are framed.
 
 Equivalent of the reference's ``FormatSpec`` / ``BlockFormatSpec`` traits
-(reference src/lib.rs:324-448), reshaped for the TPU pipeline: a format
+(reference src/lib.rs:324-448), reshaped for the device pipeline: a format
 declares *static* codec configuration (which device kernel family, which
 framing mode, which checksums) plus pure byte-level header/footer logic.
 The parallel runtime in :mod:`gzp_tpu.parallel` consumes these specs; the

@@ -1,6 +1,6 @@
 """Batched device checksums: CRC32 / CRC32C / Adler32 over ``[B, N]`` blocks.
 
-This is the TPU-native replacement for the reference's per-block checksum
+This is the device-side replacement for the reference's per-block checksum
 work done on worker threads (reference src/par/compress.rs:288-289,
 src/check.rs): every block in the device batch gets its checksum computed
 on-device, in parallel, with no byte-serial loop:
@@ -44,7 +44,7 @@ def _pick_seg_len(n: int) -> int:
 
 
 def crc_device(data_u8: jax.Array, poly: int) -> jax.Array:
-    """Batched CRC over full blocks as two GF(2) matmuls on the MXU.
+    """Batched CRC over full blocks as two GF(2) int8 matmuls.
 
     Args:
       data_u8: ``[B, N]`` uint8, every block exactly N real bytes.
@@ -55,10 +55,9 @@ def crc_device(data_u8: jax.Array, poly: int) -> jax.Array:
 
     CRC is linear over GF(2), so the raw register of each ``seg``-byte
     segment is ``bits @ M`` (mod 2) for a constant basis matrix, and the
-    pigz-COMB fold across segments is a second constant matmul — both run
-    on the MXU in int8. This replaced a per-byte table gather + log-depth
-    fold that cost ~10 ns/element on XLA:TPU (17.7 ms for a 2 MiB batch,
-    scripts/profile_r2_run1.log).
+    pigz-COMB fold across segments is a second constant matmul — both in
+    int8 with exact int32 accumulation. They stand in for a per-byte
+    table gather + log-depth fold.
     """
     b, n = data_u8.shape
     seg = _pick_seg_len(n)

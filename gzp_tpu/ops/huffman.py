@@ -57,8 +57,7 @@ def position_histograms(
 ) -> tuple[jax.Array, jax.Array]:
     """Per-block symbol frequencies from per-position symbol arrays:
     (lit_freq [B,286], dist_freq [B,30]), including the end-of-block
-    symbol (freq 1). One-hot sums run ~15x faster than scatter-adds on
-    XLA:TPU (scripts/probe_prims.log)."""
+    symbol (freq 1), as one-hot sums in place of scatter-adds."""
     o = jax.nn.one_hot(sym, NLIT, dtype=jnp.float32)
     lit_freq = jnp.sum(
         o * is_tok[:, :, None].astype(jnp.float32), axis=1
@@ -270,8 +269,7 @@ def rle_code_length_symbols(
 ) -> tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
     """Per-position RLE encoding of the 316 code lengths (RFC 1951 §3.2.7
     CL symbols 16/17/18 — zlib's compressed table description, the ~60
-    B/block the constant-layout header leaves on the table, VERDICT.md
-    round-3 task 3).
+    B/block the constant-layout header leaves on the table).
 
     Greedy chunking, fully per-position arithmetic: zero runs become
     138-bit-max sym-18 pieces (then one 17/18 for the 3..137 remainder,
@@ -340,7 +338,7 @@ def dynamic_header_fields_rle(
     cl_codes = canonical_codes(cl_lens)
 
     # per-position CL code lookup (one-hot matmul; values <= 127, exact
-    # even through TPU bf16 matmul passes)
+    # even when the matmul rounds its f32 inputs to bf16 or TF32)
     tbl = jnp.stack(
         [cl_codes.astype(jnp.float32), cl_lens.astype(jnp.float32)], axis=-1
     )

@@ -1,6 +1,6 @@
-"""Batched TPU inflate: data-parallel DEFLATE decode over independent blocks.
+"""Batched device inflate: data-parallel DEFLATE decode over independent blocks.
 
-The TPU-native replacement for the reference's libdeflate worker-pool
+A device-side counterpart of the reference's libdeflate worker-pool
 decode (reference src/par/decompress.rs:161-187): B compressed block
 payloads (from Mgzip/BGZF members, ISIZE known -> static output shapes)
 are decoded as lockstep lanes of one program.
@@ -24,8 +24,7 @@ PAPERS.md, Massively-Parallel Lossless Data Decompression):
   resolve naturally because the map is per byte.
 
 Phase 1 is a lockstep while-loop (one symbol per lane per iteration) —
-latency-bound under plain XLA; the planned Pallas specialization keeps
-the same structure with VMEM-resident state. Lanes hitting malformed
+latency-bound under plain XLA. Lanes hitting malformed
 data set ``ok=False``; the host pipeline retries those blocks on the
 native CPU path for precise errors.
 """

@@ -1,11 +1,10 @@
 """Batched LZ77 match finding and parallel greedy parse.
 
-TPU-native replacement for the hash-chain match finders inside zlib-ng /
+Data-parallel replacement for the hash-chain match finders inside zlib-ng /
 libdeflate (the reference's L0 codec backends, reference Cargo.toml:28-52).
 Everything operates on a batch of independent blocks ``[B, N]`` with static
-shapes and — critically on XLA:TPU, where arbitrary-index gathers and
-scatters execute at ~10 ns/element (scripts/probe_prims.log) — with no
-per-element indexed memory ops beyond two sorts:
+shapes and with no per-element indexed memory ops (gathers, scatters)
+beyond two sorts:
 
 * **Candidate discovery**: one multi-operand sort of
   ``(hash(4 bytes) << pos_bits) | position`` keys that *carries 12 bytes
@@ -13,7 +12,7 @@ per-element indexed memory ops beyond two sorts:
   previous occurrence of each hash is the left neighbor in sorted order
   and match verification is a shift-compare of the carried context.
 * **Order restoration**: a second 2-operand sort keyed by position
-  (inverting a permutation by sorting is ~5x cheaper than a scatter).
+  (inverting a permutation by sorting instead of scattering).
 * **Run detection** (distance-1 matches, the RLE workhorse) uses a
   segmented associative scan over byte-equality, exact to 258.
 * **Match extension** beyond the carried context chains context-capped
@@ -21,7 +20,8 @@ per-element indexed memory ops beyond two sorts:
   doubling on shifts, log rounds of contiguous ops).
 * **Greedy parse** (`parse_marks`) turns the sequential greedy walk into
   a per-window boolean reachability closure computed by batched int8
-  matrix squarings on the MXU.
+  matrix squarings; ``parse_marks_scan`` (the default) composes δ-state
+  tables instead.
 
 The result is a per-position token-start mask plus (length, distance)
 arrays, ready for per-position format emission.
@@ -163,16 +163,15 @@ def best_matches(
     clamped to the payload end and ``max_match``; distances respect
     ``max_dist`` (32768 for DEFLATE, 65535 for snappy).
 
-    Design (v2, from the measured TPU primitive costs in
-    scripts/probe_prims.log — arbitrary gathers cost ~10 ns/element while
-    sorts cost ~1-1.6 and contiguous VPU ops ~0.2):
+    Design: sorts and contiguous elementwise ops only, no arbitrary
+    gathers or scatters:
 
     * candidates come from ONE multi-operand sort of ``(hash<<bits)|pos``
       keys *carrying 12 bytes of suffix context as payload*, so candidate
       verification is a shift-compare against the sorted neighbor — no
-      post-sort gathers (round 1 spent 32 gathers = 700 ms here);
+      post-sort gathers;
     * results return to position order through a second 2-operand sort
-      (inverting a permutation by sorting beats an 11 ns/elem scatter);
+      (inverting a permutation by sorting instead of scattering);
     * distance-1 runs come exact from a segmented scan;
     * matches longer than the carried context extend by pointer-doubling
       on *static* shifts: if the match at ``i`` is context-capped and
@@ -253,10 +252,9 @@ def best_matches(
     if suffix:
         # -- content sort: lexicographic over the first ``suffix_keys``
         # context words (default: all of them), position as tie-break,
-        # remaining words carried as free payload operands. Sort cost
-        # scales with comparator depth — ~0.4 ns/elem per extra KEY
-        # while payload operands are free (scripts/probe_sortkeys.log) —
-        # so fewer key words buys real throughput; candidates within a
+        # remaining words carried as payload operands. A comparison
+        # sort's cost grows with its key count while payload operands
+        # only ride along, so fewer key words are cheaper; candidates within a
         # key-equal bucket then come in RECENCY order (zlib chain order)
         # instead of full suffix order.
         kw = min(suffix_keys, payload_words) if suffix_keys else payload_words
@@ -276,8 +274,7 @@ def best_matches(
         # width, and with truncated keys still a valid common prefix by
         # the LCP ultrametric inequality lcp(a,c) >= min(lcp(a,b),
         # lcp(b,c)), so every claimed match is genuine (possibly
-        # shorter than optimal). Mirrors ops/lz_pallas.py's
-        # _suffix_merge_kernel bit for bit.
+        # shorter than optimal).
         adj = jnp.full((b, n_ext), payload_bytes, _I32)
         alive = jnp.ones((b, n_ext), jnp.bool_)
         for k, w in enumerate(skeys):
@@ -497,7 +494,8 @@ def parse_marks_scan(
     (≥ L passes through as δ − L). Tables cap at 256 entries because
     steps are capped at ``max_step`` = 255 (matches ≥ 256 emit 255 and
     re-match — sub-0.1% size cost) — exactly one byte, so the one-hot
-    compositions stay exact through TPU bf16 matmul passes.
+    compositions stay exact even when a matmul rounds its f32 inputs to
+    bf16 or TF32.
 
     Upward pass: log2(N) levels of pairwise table composition (one-hot
     matmuls, ~500 int8 MACs/element total vs the windowed closure's
@@ -602,10 +600,9 @@ def parse_marks(
     round-1 pointer-doubling parse), so each window parses independently:
     build the one-step transition matrix of every window (one-hot of the
     local jump target, with an absorbing exit state) and square ``I + T``
-    log2(window) times on the MXU. Token starts = states reachable from
-    local position 0. This replaces per-element gather/scatter pointer
-    doubling (~34 ms per round on XLA:TPU, scripts/probe_prims.log) with
-    batched int8 matmuls measured at ~2 ms total.
+    log2(window) times as batched int8 matmuls. Token starts = states
+    reachable from local position 0. This replaces per-element
+    gather/scatter pointer doubling.
 
     Returns ``(marked [B, M] bool, l [B, M] int32)`` — token-start mask
     and the window-clamped match length the parse actually used (callers

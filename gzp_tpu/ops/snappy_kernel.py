@@ -16,7 +16,7 @@ Literal runs are grouped with cummax/cummin over positions and chunked
 into <=60-byte tag-only literal elements; each position contributes at
 most one <=24-bit entry, and the whole frame body (varint preamble
 included, as a dynamic-width head entry) is assembled by the
-scatter-free sortscan packer (round 4; gzp_tpu.ops.deflate_kernel).
+scatter-free sortscan packer (gzp_tpu.ops.deflate_kernel).
 """
 
 from __future__ import annotations
@@ -51,16 +51,11 @@ class SnappyEncodeConfig:
     # bounds a single token at 255, chains split it into <=64 pieces
     max_match: int = 256
     max_chain_piece: int = 64  # tag-10 copy length cap (format limit)
-    # matcher knobs (round-5 port to the current lz defaults: the scan
-    # parse + these knobs made DEFLATE 3.1x faster end-to-end in round 3
-    # and were never propagated here — VERDICT r4 weak #4)
+    # matcher knobs: the same defaults as DEFLATE levels 2-5
     payload_words: int = 3
     lags: int = 2
     sample_step: int = 1
     parse: str = "scan"  # 'scan' (default) | 'window' (round-2 A/B)
-    # None = auto: fused Pallas matcher+packer off-CPU (round-5 default,
-    # like DeflateEncodeConfig.for_level), XLA formulation on the CPU mesh
-    pallas: bool | None = None
 
     @property
     def out_bytes(self) -> int:
@@ -84,33 +79,17 @@ def encode_snappy_blocks(cfg: SnappyEncodeConfig, data_u8, lengths, is_final):
     b, n = data_u8.shape
     assert n == cfg.block_len and n <= SNAPPY_MAX_CHUNK
 
-    use_pallas = cfg.pallas
-    if use_pallas is None:
-        use_pallas = jax.default_backend() != "cpu"
-    if use_pallas and cfg.sample_step == 1:
-        from gzp_tpu.ops.lz_pallas import best_matches_pallas
-
-        match_len, match_dist = best_matches_pallas(
-            data_u8,
-            lengths,
-            max_dist=SNAPPY_MAX_CHUNK - 1,
-            max_match=cfg.max_match,
-            min_emit=SNAPPY_MIN_MATCH,
-            payload_words=cfg.payload_words,
-            lags=cfg.lags,
-        )
-    else:
-        match_len, match_dist = lz.best_matches(
-            data_u8,
-            lengths,
-            max_dist=SNAPPY_MAX_CHUNK - 1,
-            max_match=cfg.max_match,
-            min_emit=SNAPPY_MIN_MATCH,
-            max_words=cfg.max_words,
-            payload_words=cfg.payload_words,
-            lags=cfg.lags,
-            sample_step=cfg.sample_step,
-        )
+    match_len, match_dist = lz.best_matches(
+        data_u8,
+        lengths,
+        max_dist=SNAPPY_MAX_CHUNK - 1,
+        max_match=cfg.max_match,
+        min_emit=SNAPPY_MIN_MATCH,
+        max_words=cfg.max_words,
+        payload_words=cfg.payload_words,
+        lags=cfg.lags,
+        sample_step=cfg.sample_step,
+    )
     if cfg.parse == "scan":
         marked, l = lz.parse_marks_scan(
             match_len, lengths, min_emit=SNAPPY_MIN_MATCH
@@ -195,16 +174,9 @@ def encode_snappy_blocks(cfg: SnappyEncodeConfig, data_u8, lengths, is_final):
     all_bits = jnp.concatenate([ventry[:, None], entry], axis=1)
     all_n = jnp.concatenate([(8 * varint_len)[:, None], width], axis=1)
     out_words = cfg.out_bytes // 4
-    if use_pallas:
-        from gzp_tpu.ops.pack_pallas import pack_entries_sortscan_pallas
-
-        words, total_bits = pack_entries_sortscan_pallas(
-            all_bits, all_n, 8 * _HDR, out_words
-        )
-    else:
-        words, total_bits = pack_entries_sortscan(
-            all_bits, all_n, 8 * _HDR, out_words
-        )
+    words, total_bits = pack_entries_sortscan(
+        all_bits, all_n, 8 * _HDR, out_words
+    )
     elem_total = (total_bits >> 3) - _HDR - varint_len
     out = jnp.stack(
         [words & 0xFF, (words >> 8) & 0xFF, (words >> 16) & 0xFF, (words >> 24) & 0xFF],

@@ -243,10 +243,8 @@ def crc_bit_matrix(seg_len: int, poly: int) -> np.ndarray:
     register contributed by bit ``b`` of the byte at offset ``q`` of a
     ``seg_len``-byte segment, unpacked to 0/1 int8.
 
-    Lets the per-segment raw CRC be computed as ONE int8 matmul mod 2 on
-    the MXU (bits[B*S, seg*8] @ M), replacing the per-byte table gather —
-    XLA:TPU executes arbitrary-index gathers at ~10 ns/element
-    (scripts/profile_r2_run1.log) while the equivalent matmul is tiny.
+    Lets the per-segment raw CRC be computed as ONE int8 matmul mod 2
+    (bits[B*S, seg*8] @ M) in place of a per-byte table gather.
     """
     pos = crc_position_table(seg_len, poly).reshape(seg_len, 256)
     contrib = pos[:, [1 << b for b in range(8)]]  # [seg, 8] uint32

@@ -1,7 +1,7 @@
 """Multi-host (multi-process) parallel compression.
 
 The reference is a single-process library whose scaling axis is worker
-threads (reference src/par/compress.rs:248-323). The TPU-native scaling
+threads (reference src/par/compress.rs:248-323). Here the scaling
 axis above one host is processes: each host compresses a *contiguous
 range of blocks* on its local devices and the partial streams are
 stitched in host-rank order — exactly the reference's ordered-writer
@@ -24,7 +24,8 @@ Design:
 ``init_distributed()`` wires this to ``jax.distributed`` so N real
 processes (one per host) can run ``compress_shard`` concurrently; the
 rank-0 process stitches. ``tests/test_multihost.py`` exercises the full
-2-process path on the CPU backend.
+2-process path on the CPU backend (its children set ``JAX_PLATFORMS``).
+The worker entry runs on whatever backend JAX finds.
 """
 
 from __future__ import annotations
@@ -38,8 +39,19 @@ from gzp_tpu.formats.base import FormatSpec
 from gzp_tpu.parallel.compress import ParCompress
 
 
-def init_distributed(coordinator_address: str, num_processes: int, process_id: int):
-    """Initialize jax.distributed for a multi-process run (idempotent)."""
+def init_distributed(
+    coordinator_address: str,
+    num_processes: int,
+    process_id: int,
+    local_device_ids: list[int] | None = None,
+):
+    """Initialize jax.distributed for a multi-process run (idempotent).
+
+    Meant for one process per host, each driving its host's devices.
+    When several processes share one machine, give each its own cards
+    with ``local_device_ids``: otherwise every process opens, and
+    reserves memory on, every card.
+    """
     import jax
 
     try:
@@ -47,6 +59,7 @@ def init_distributed(coordinator_address: str, num_processes: int, process_id: i
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=local_device_ids,
         )
     except RuntimeError as e:  # already initialized
         if "already" not in str(e).lower():
@@ -175,10 +188,6 @@ def _worker_main() -> None:
     test): compress one shard and write the serialized ShardResult."""
     import argparse
     import sys
-
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
     p = argparse.ArgumentParser()
     p.add_argument("--coordinator", required=True)

@@ -74,7 +74,10 @@ def _copy(out: bytearray, offset: int, ln: int) -> None:
     if offset == 0 or offset > len(out):
         raise DecompressError("copy offset out of range")
     start = len(out) - offset
-    for k in range(ln):  # may overlap (RLE) — byte-at-a-time semantics
+    if offset >= ln:  # no overlap: one slice copy
+        out += out[start : start + ln]
+        return
+    for k in range(ln):  # overlapping (RLE) — byte-at-a-time semantics
         out.append(out[start + k])
 
 

@@ -1,4 +1,4 @@
-"""TPU batch-inflate kernel tests (run on the CPU mesh like everything else).
+"""Device batch-inflate kernel tests (run on the CPU mesh like everything else).
 
 Oracle pattern mirrors the reference's decompression tests
 (src/deflate.rs:994-1051): compress with an independent implementation

@@ -1,5 +1,5 @@
 """Multi-device sharded compression on the virtual 8-CPU mesh — the
-TPU analog of the reference's multi-thread proptests (SURVEY.md §4:
+device analog of the reference's multi-thread proptests (SURVEY.md §4:
 "parameterize tests over device counts")."""
 
 import gzip
@@ -9,7 +9,7 @@ import jax
 import numpy as np
 import pytest
 
-from gzp_tpu import Gzip, Mgzip, ZBuilder
+from gzp_tpu import Bgzf, Gzip, Mgzip, Snap, ZBuilder
 from gzp_tpu.constants import DICT_SIZE
 
 
@@ -56,3 +56,30 @@ def test_mesh_output_matches_single_device(cpu_devices):
         w.finish()
         outs.append(buf.getvalue())
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("fmt,level", [(Gzip, 6), (Bgzf, 6), (Snap, 3)],
+                         ids=["gzip-halo", "bgzf", "snappy"])
+def test_four_device_mesh_matches_one_device(fmt, level, cpu_devices):
+    """The ``chip_smoke.py --four`` check on virtual devices: a writer
+    sharded over a 4-device mesh emits the same bytes as one device,
+    across several batches (the halo carry crosses batch boundaries)."""
+    data = make_text(DICT_SIZE * 19 + 777, seed=level)
+    if fmt is Bgzf:  # one incompressible block: stored fallback
+        rnd = np.random.default_rng(1).integers(0, 256, DICT_SIZE, np.uint8).tobytes()
+        data = data[: 5 * DICT_SIZE] + rnd + data[6 * DICT_SIZE :]
+    outs = []
+    for mesh in [None, jax.sharding.Mesh(np.array(cpu_devices[:4]), ("blocks",))]:
+        buf = io.BytesIO()
+        b = ZBuilder(fmt).num_threads(4).compression_level(level).buffer_size(DICT_SIZE)
+        w = b.mesh(mesh).from_writer(buf)
+        w.write(data)
+        w.finish()
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]
+    if fmt is Snap:
+        from gzp_tpu.utils.snappy_ref import decode_frames
+
+        assert decode_frames(outs[1]) == data
+    else:
+        assert gzip.decompress(outs[1]) == data

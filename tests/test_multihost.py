@@ -1,14 +1,15 @@
 """Multi-host (multi-process) compression tests.
 
 The BASELINE scaling target is 2+ hosts; the reference has no multi-node
-layer at all (it is a single-process library), so this is TPU-native
-surface beyond parity. The real code path — ``jax.distributed`` init,
+layer at all (it is a single-process library), so this is surface
+beyond parity. The real code path — ``jax.distributed`` init,
 per-host contiguous block ranges, rank-ordered stitch with cross-host
 checksum combine — runs as N actual OS processes on the CPU backend.
 """
 
 import gzip
 import io
+import os
 import socket
 import subprocess
 import sys
@@ -102,6 +103,7 @@ def test_two_process_jax_distributed(tmp_path):
         port = s.getsockname()[1]
     coord = f"localhost:{port}"
 
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     procs = []
     outs = []
     for rank in range(2):
@@ -117,6 +119,7 @@ def test_two_process_jax_distributed(tmp_path):
                     "--input", str(inp), "--output", str(out),
                 ],
                 cwd=REPO,
+                env=env,
             )
         )
     for p in procs:

@@ -176,7 +176,7 @@ def test_suffix_matcher_oracle(level):
     # vs the hash matcher: on REPETITIVE corpora recency-first candidate
     # order can win slightly (nearer distances = fewer bits), so allow a
     # small margin here; the quality win that matters is on the bench
-    # corpus (benches/ratio_r4.log: x1.095 -> x1.026 at level 6)
+    # corpus (benches/ratio.py: x1.095 -> x1.026 at level 6)
     cfg_h = dataclasses.replace(cfg, matcher="hash")
     rh = encode_deflate_blocks(
         cfg_h, jnp.asarray(data), jnp.asarray(lengths), jnp.asarray(finals)
@@ -227,6 +227,25 @@ def test_parcompress_verify_happy_and_repair():
     assert gzip.decompress(blob) == b"y" * 1000
 
 
+@pytest.mark.parametrize("verify", [None, False])
+def test_parcompress_verify_off_by_default(verify):
+    """Without an explicit verify=True no block is oracle-decoded, on any
+    backend (the reference trusts its codecs, src/par/compress.rs:288-289)."""
+    import io
+
+    from gzp_tpu import Mgzip
+    from gzp_tpu.parallel.compress import ParCompress
+
+    data = _text(70000, 6)
+    buf = io.BytesIO()
+    kw = {} if verify is None else {"verify": verify}
+    w = ParCompress(Mgzip, buf, num_threads=2, buffer_size=32768, **kw)
+    w.write(data)
+    w.finish()
+    assert gzip.decompress(buf.getvalue()) == data
+    assert w.verify_stats == {"checked": 0, "repaired": 0}
+
+
 def test_dict_carry_with_subblocks_and_suffix():
     """The three round-4 features together: 32 KiB-style halo carry,
     content-ordered candidates, and per-sub-block Huffman tables. The
@@ -252,3 +271,35 @@ def test_dict_carry_with_subblocks_and_suffix():
     out, ol = np.asarray(r["out"]), np.asarray(r["out_len"])
     stream = b"".join(out[i, : ol[i]].tobytes() for i in range(b))
     assert zlib.decompressobj(-15).decompress(stream) == blob
+
+
+def _corpus(n, seed=0):
+    rng = np.random.default_rng(seed)
+    words = [b"the quick brown fox ", b"jumps over the lazy dog ",
+             b"pack my box with five dozen liquor jugs "]
+    out, total = [], 0
+    while total < n:
+        w = words[rng.integers(0, len(words))]
+        out.append(w)
+        total += len(w)
+    return b"".join(out)[:n]
+
+
+def test_int8_lookup_byte_identical():
+    """lookup='int8' (nibble-split int8 matmul) must produce the same
+    stream as the f32 one-hot path."""
+    B, N = 2, 32768
+    data = np.frombuffer(_corpus(B * N, seed=31), np.uint8).reshape(B, N)
+    lengths = jnp.full((B,), N, jnp.int32)
+    finals = jnp.zeros((B,), bool)
+    base = DeflateEncodeConfig.for_level(N, "mgzip", "none", 3)
+    r1 = encode_deflate_blocks(base, jnp.asarray(data), lengths, finals)
+    c8 = dataclasses.replace(base, lookup="int8")
+    r2 = encode_deflate_blocks(c8, jnp.asarray(data), lengths, finals)
+    assert np.array_equal(np.asarray(r1["out_len"]), np.asarray(r2["out_len"]))
+    assert np.array_equal(np.asarray(r1["out"]), np.asarray(r2["out"]))
+    ol = np.asarray(r2["out_len"])
+    for i in range(B):
+        assert gzip.decompress(
+            np.asarray(r2["out"])[i, : ol[i]].tobytes()
+        ) == data[i].tobytes()
