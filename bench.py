@@ -1,23 +1,21 @@
 """Benchmark harness: device encode throughput of the Mgzip encoder.
 
-    python bench.py [LEVEL]                      # the ladder below, at LEVEL (3)
-    python bench.py --stage BATCH BLOCK REPS [LEVEL]
+    python bench.py [--level 3] [--batch 64] [--block 131072] [--reps 8]
 
-Needs a GPU: a run that finds another platform fails. Every result line
-names the device it ran on (platform, device_kind, device count).
-
-The supervisor process stays off JAX and starts ONE worker, the only
-process that opens the card. The worker climbs a config ladder
-(small -> flagship), printing a JSON line per completed stage; the
-supervisor prints the largest completed stage as the last line, also on
-SIGTERM or when its deadline (``GZP_BENCH_BUDGET_S``) passes.
+Needs a GPU: a run that finds another platform fails. One process, the
+only one that opens the card. It prints one JSON line each for the host
+decode rate, the snappy encoder and the Mgzip encoder at the flagship
+configuration (64 x 128 KiB, level 3; the last line). Every line names
+the device it ran on (platform, device_kind, device count). Any failed
+check raises, so the run exits non-zero and prints no result line for
+that measurement.
 
 Method: R iterations of the full batched encoder are chained INSIDE one
 jitted fori_loop with a one-byte data dependency between iterations, so
 XLA can neither elide nor overlap them; one scalar fetch forces the
 chain. Per-iteration time is device compute on device-resident data.
 Correctness is checked in the same run: sampled members of one batch are
-gzip-decoded against the input (any mismatch fails the stage), and the
+gzip-decoded against the input (any mismatch fails the run), and the
 compressed size is compared with CPython zlib at the same level.
 
 Corpus: the reference benches on ~550 MB of shakespeare (reference
@@ -27,24 +25,12 @@ equivalent-entropy English-text corpus is synthesized deterministically.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
-import signal
-import subprocess
-import sys
 import time
 
 import numpy as np
-
-# ladder stages: (batch, block_size, reps) in ascending cost; the last is
-# the flagship config (reference benches 128 KiB blocks at level 3,
-# benches/bench.rs:120-150)
-LADDER = [
-    (8, 32768, 4),
-    (16, 131072, 4),
-    (32, 131072, 8),
-    (64, 131072, 8),
-]
 
 
 def make_corpus(nbytes: int, seed: int = 1234) -> bytes:
@@ -106,8 +92,9 @@ def device_info() -> dict:
             "device_count": len(devices)}
 
 
-def run_stage(batch: int, block_size: int, reps: int, level: int) -> dict:
-    """Compile + time + validate one ladder stage. Returns the result dict."""
+def measure_mgzip(batch: int, block_size: int, reps: int, level: int) -> dict:
+    """Compile + time + validate the Mgzip encoder on one [batch,
+    block_size] batch. Returns the result dict."""
     import zlib as _zlib
 
     import jax
@@ -274,7 +261,8 @@ def measure_decode() -> dict:
         out = r.read()
         dt = time.perf_counter() - t0
         r.close()
-        assert out == corpus, "decode bench validation failed"
+        if out != corpus:
+            raise AssertionError("decode bench: output differs from the input")
         best = min(best, dt)
     return {
         "gbps_uncompressed": round(total / best / 1e9, 4),
@@ -283,107 +271,23 @@ def measure_decode() -> dict:
     }
 
 
-def worker(level: int) -> None:
-    """Climb the ladder, printing one JSON line per completed stage."""
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    # the flagship: 128 KiB blocks at level 3 (reference benches/bench.rs:120-150),
+    # 64 blocks per device batch (num_threads(64))
+    ap.add_argument("--level", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--block", type=int, default=131072)
+    ap.add_argument("--reps", type=int, default=8)
+    args = ap.parse_args(argv)
+
     from gzp_tpu.utils.testing import enable_compilation_cache
 
-    dev = device_info()  # fails the run before any stage without a GPU
+    dev = device_info()  # fails the run before any measurement without a GPU
     enable_compilation_cache()
-    # decode first: host-only, and cheap
     print(json.dumps({"decode_info": {**measure_decode(), "device": dev}}), flush=True)
     print(json.dumps({"snappy_info": {**measure_snappy(), "device": dev}}), flush=True)
-    for batch, block_size, reps in LADDER:
-        print(json.dumps(run_stage(batch, block_size, reps, level)), flush=True)
-
-
-def supervise(level: int) -> None:
-    """Start the worker; keep the largest-config completed result; always
-    print exactly one JSON line last, even on SIGTERM or deadline."""
-    deadline = time.time() + float(os.environ.get("GZP_BENCH_BUDGET_S", "3000"))
-    best: dict | None = None
-    info: dict = {}
-    errors: list[str] = []
-
-    proc = subprocess.Popen(
-        [sys.executable, "-u", os.path.abspath(__file__), "--worker", str(level)],
-        stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE,
-        text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-    )
-
-    def finish(*_a):
-        try:
-            proc.kill()
-            err = proc.stderr.read()
-        except Exception:
-            err = ""
-        if err.strip():
-            errors.append(err.strip().splitlines()[-1][:500])
-        if best is not None:
-            out = dict(best)
-            out.setdefault("extra", {}).update(info, stage_errors=errors[:3])
-            print(json.dumps(out), flush=True)
-            os._exit(0)
-        print(
-            json.dumps(
-                {
-                    "metric": "mgzip_encode_device_throughput",
-                    "value": 0.0,
-                    "unit": "GB/s",
-                    "extra": {"error": "no ladder stage completed", "stage_errors": errors[:3]},
-                }
-            ),
-            flush=True,
-        )
-        os._exit(1)
-
-    signal.signal(signal.SIGTERM, finish)
-    signal.signal(signal.SIGINT, finish)
-
-    import selectors
-
-    sel = selectors.DefaultSelector()
-    sel.register(proc.stdout, selectors.EVENT_READ)
-    while True:
-        if time.time() > deadline:
-            errors.append("deadline passed")
-            finish()
-        if not sel.select(timeout=5.0):
-            if proc.poll() is not None:
-                finish()
-            continue
-        line = proc.stdout.readline()
-        if not line:
-            finish()
-        try:
-            res = json.loads(line)
-        except json.JSONDecodeError:
-            continue
-        for key in ("decode_info", "snappy_info"):
-            if key in res:
-                info[key.removesuffix("_info")] = res[key]
-        if "metric" in res:
-            best = res
-        print(line.strip(), flush=True)
-
-
-def main() -> None:
-    args = sys.argv[1:]
-    if args and args[0] == "--worker":
-        worker(int(args[1]) if len(args) > 1 else 3)
-        return
-    if args and args[0] == "--stage":
-        from gzp_tpu.utils.testing import enable_compilation_cache
-
-        device_info()
-        enable_compilation_cache()
-        b, bs, reps = int(args[1]), int(args[2]), int(args[3])
-        level = int(args[4]) if len(args) > 4 else 3
-        print(json.dumps(run_stage(b, bs, reps, level)))
-        return
-    level = int(args[0]) if args else 3
-    supervise(level)
+    print(json.dumps(measure_mgzip(args.batch, args.block, args.reps, args.level)), flush=True)
 
 
 if __name__ == "__main__":

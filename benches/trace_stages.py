@@ -79,13 +79,43 @@ def _frame_stage(frame: int, tables) -> str | None:
     return None
 
 
+_COMP = re.compile(r"^(?:ENTRY\s+)?%?([\w.\-]+) \(.*\{\s*$")
+_CALLS = re.compile(r"calls=%?([\w.\-]+)")
+_TARGET = re.compile(r'custom_call_target="([^"]*)"')
+
+
+def _sort_computations(hlo_text: str) -> set[str]:
+    """Names of the computations that hold an HLO ``sort``."""
+    out, cur = set(), None
+    for line in hlo_text.splitlines():
+        m = _COMP.match(line)
+        if m:
+            cur = m.group(1)
+        elif cur is not None and " sort(" in line:
+            out.add(cur)
+    return out
+
+
+def _is_sort(line: str, sort_comps: set[str]) -> bool:
+    """A sort is an HLO ``sort``, a fusion that calls one (XLA's own sort
+    kernel), or a sort library call (CUB radix sort)."""
+    if " sort(" in line:
+        return True
+    target = _TARGET.search(line)
+    if target:
+        return "sort" in target.group(1).lower()
+    calls = _CALLS.search(line)
+    return bool(calls and calls.group(1) in sort_comps)
+
+
 def op_stages(hlo_text: str) -> dict[str, tuple[str, bool]]:
     """HLO instruction name -> (stage, is_sort) from the compiled module.
 
     The stage comes from the instruction's source stack frames when the
-    dump has them, else from its ``jax.named_scope`` path; an op is a
-    sort when its op name ends in ``sort`` (XLA sort fusions, CUB)."""
+    dump has them, else from its ``jax.named_scope`` path; see
+    :func:`_is_sort` for what counts as a sort."""
     tables = _tables(hlo_text)
+    sort_comps = _sort_computations(hlo_text)
     out = {}
     for line in hlo_text.splitlines():
         m = _INSTR.match(line)
@@ -95,7 +125,7 @@ def op_stages(hlo_text: str) -> dict[str, tuple[str, bool]]:
         frame = _FRAME.search(line)
         stage = _frame_stage(int(frame.group(1)), tables) if frame else None
         stage = stage or next((s for s in STAGES if s in parts), "other")
-        out[m.group(1)] = (stage, parts[-1] == "sort")
+        out[m.group(1)] = (stage, _is_sort(line, sort_comps))
     return out
 
 

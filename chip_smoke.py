@@ -153,12 +153,16 @@ def identity_phase(label: str, fmt, level: int, block: int, data: bytes,
     """The same 4 blocks through the default-device writer (one batch
     of ``threads`` blocks, the program of the encode phases) and through
     a writer pinned to the CPU backend (a one-device CPU mesh, 4 blocks
-    per batch): identical bytes."""
+    per batch): identical bytes. The CPU programs bypass the persistent
+    compile cache, which other host types may share."""
     import jax
+
+    from gzp_tpu.utils.testing import persistent_cache_off
 
     cpu_mesh = jax.sharding.Mesh(np.array(jax.devices("cpu")[:1]), ("blocks",))
     gpu_out, _, _ = compress(fmt, level, block, data, threads=threads)
-    cpu_out, _, _ = compress(fmt, level, block, data, threads=4, mesh=cpu_mesh)
+    with persistent_cache_off():
+        cpu_out, _, _ = compress(fmt, level, block, data, threads=4, mesh=cpu_mesh)
     if gpu_out != cpu_out:
         diff = next(
             (i for i, (a, b) in enumerate(zip(gpu_out, cpu_out)) if a != b),

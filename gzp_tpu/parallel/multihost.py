@@ -183,11 +183,9 @@ def stitch_shards(
         writer.write(footer)
 
 
-def _worker_main() -> None:
-    """Entry for one process of an N-process run (used by the multi-host
-    test): compress one shard and write the serialized ShardResult."""
+def _worker_args(argv=None):
+    """Command line of :func:`_worker_main`."""
     import argparse
-    import sys
 
     p = argparse.ArgumentParser()
     p.add_argument("--coordinator", required=True)
@@ -198,9 +196,25 @@ def _worker_main() -> None:
     p.add_argument("--buffer-size", type=int, default=None)
     p.add_argument("--input", required=True)
     p.add_argument("--output", required=True)
-    args = p.parse_args()
+    p.add_argument(
+        "--local-device-ids",
+        type=lambda v: [int(i) for i in v.split(",")],
+        default=None,
+        help="comma-separated local devices of this process (e.g. 0 or 2,3) "
+        "when several processes share one machine",
+    )
+    return p.parse_args(argv)
 
-    rank, nproc = init_distributed(args.coordinator, args.num_processes, args.rank)
+
+def _worker_main() -> None:
+    """Entry for one process of an N-process run (used by the multi-host
+    test): compress one shard and write the serialized ShardResult."""
+    import sys
+
+    args = _worker_args()
+    rank, nproc = init_distributed(
+        args.coordinator, args.num_processes, args.rank, args.local_device_ids
+    )
     assert rank == args.rank and nproc == args.num_processes
 
     from gzp_tpu import ALL_FORMATS

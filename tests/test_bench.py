@@ -1,6 +1,11 @@
-"""bench.py's own checks: any decode mismatch fails a stage."""
+"""bench.py's own checks: any decode mismatch, and a missing GPU, fail
+the run."""
 
 import gzip
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,3 +36,15 @@ def test_make_corpus_is_seeded():
     a = bench.make_corpus(10000)
     assert a == bench.make_corpus(10000) and len(a) == 10000
     assert bench.make_corpus(10000, seed=1) != a
+
+
+def test_refuses_without_gpu():
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    r = subprocess.run(
+        [sys.executable, "bench.py", "--batch", "2", "--block", "4096", "--reps", "1"],
+        cwd=Path(__file__).resolve().parent.parent, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode != 0
+    assert '"metric"' not in r.stdout and "_info" not in r.stdout
+    assert "bench needs a GPU" in r.stderr

@@ -22,7 +22,9 @@ import pytest
 from gzp_tpu import Bgzf, Gzip, Mgzip, Zlib
 from gzp_tpu.parallel.multihost import (
     ShardResult,
+    _worker_args,
     compress_shard,
+    init_distributed,
     shard_ranges,
     stitch_shards,
 )
@@ -87,6 +89,23 @@ def test_shard_result_roundtrip():
     assert (s2.rank, s2.payload, s2.check_sum, s2.check_amount) == (
         3, b"payload", 0xDEADBEEF, 12345,
     )
+
+
+@pytest.mark.parametrize("flag,want", [(None, None), ("1", [1]), ("2,3", [2, 3])])
+def test_worker_local_device_ids(flag, want, monkeypatch):
+    """``--local-device-ids`` reaches ``jax.distributed.initialize``, so
+    processes that share a machine each open only their own cards."""
+    import jax
+
+    argv = ["--coordinator", "localhost:1", "--num-processes", "2", "--rank", "1",
+            "--input", "i", "--output", "o"]
+    args = _worker_args(argv + (["--local-device-ids", flag] if flag else []))
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize", lambda **kw: seen.update(kw))
+    init_distributed(args.coordinator, args.num_processes, args.rank,
+                     args.local_device_ids)
+    assert seen == {"coordinator_address": "localhost:1", "num_processes": 2,
+                    "process_id": 1, "local_device_ids": want}
 
 
 @pytest.mark.slow

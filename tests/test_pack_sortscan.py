@@ -1,5 +1,5 @@
-"""The round-4 sortscan bit packer and the staged encoder: bit-exactness
-vs the grouped packer, oracle decode, and edge shapes.
+"""The sortscan bit packer and the jitted encoder: bit-exactness vs the
+grouped packer, oracle decode, compaction, and edge shapes.
 
 The packer contract (gzp_tpu/ops/deflate_kernel.py:pack_entries_sortscan)
 mirrors the reference's bit-writer inside zlib-ng/libdeflate (reference
@@ -18,7 +18,7 @@ import pytest
 from gzp_tpu.ops.deflate_kernel import (
     DeflateEncodeConfig,
     encode_deflate_blocks,
-    get_staged_encoder,
+    get_encoder,
     pack_entries_grouped,
     pack_entries_sortscan,
 )
@@ -96,27 +96,27 @@ def test_full_encoder_sortscan_oracle(mode):
             assert gzip.decompress(out[i, : ol[i]].tobytes()) == data[i, : lengths[i]].tobytes()
 
 
-def test_staged_encoder_matches_monolith():
+def test_encoder_compact_flat_matches_rows():
+    """``get_encoder(compact=True)``'s ``flat`` is the rows' valid bytes
+    back to back, and the rows equal the un-jitted encoder's."""
     n, b = 8192, 2
     data = np.frombuffer(_text(b * n, 7), np.uint8).reshape(b, n)
     lengths = np.full((b,), n, np.int32)
     finals = np.zeros((b,), bool)
-    cfg = dataclasses.replace(
-        DeflateEncodeConfig.for_level(n, "mgzip", "none", 3), pack="sortscan"
-    )
-    r1 = encode_deflate_blocks(
-        cfg, jnp.asarray(data), jnp.asarray(lengths), jnp.asarray(finals)
-    )
-    run = get_staged_encoder(cfg)
-    r2 = run(jnp.asarray(data), jnp.asarray(lengths), jnp.asarray(finals))
-    np.testing.assert_array_equal(np.asarray(r1["out"]), np.asarray(r2["out"]))
-    np.testing.assert_array_equal(np.asarray(r1["out_len"]), np.asarray(r2["out_len"]))
+    cfg = DeflateEncodeConfig.for_level(n, "mgzip", "none", 3)
+    args = (jnp.asarray(data), jnp.asarray(lengths), jnp.asarray(finals))
+    r1 = encode_deflate_blocks(cfg, *args)
+    r2 = get_encoder(cfg, compact=True)(*args)
+    out, ol = np.asarray(r2["out"]), np.asarray(r2["out_len"])
+    np.testing.assert_array_equal(np.asarray(r1["out"]), out)
+    np.testing.assert_array_equal(np.asarray(r1["out_len"]), ol)
+    rows = b"".join(out[i, : ol[i]].tobytes() for i in range(b))
+    assert np.asarray(r2["flat"])[: len(rows)].tobytes() == rows
 
 
-def test_staged_encoder_dict_carry():
-    """Halo path through the staged pipeline: distances reaching into the
-    previous block's tail must survive the stage boundaries (reference
-    src/par/compress.rs:417-423)."""
+def test_encoder_dict_carry():
+    """Halo path through the jitted encoder: distances reaching into the
+    previous block's tail decode (reference src/par/compress.rs:417-423)."""
     n, b = 4096, 2
     blob = _text(2 * n, 9)
     data = np.frombuffer(blob, np.uint8).reshape(b, n)
@@ -126,12 +126,8 @@ def test_staged_encoder_dict_carry():
     halo = np.zeros((b, dict_size), np.uint8)
     halo[1] = data[0, -dict_size:]
     dict_lens = np.array([0, dict_size], np.int32)
-    cfg = dataclasses.replace(
-        DeflateEncodeConfig.for_level(n, "stream", "crc32", 3, dict_size=dict_size),
-        pack="sortscan",
-    )
-    run = get_staged_encoder(cfg)
-    r = run(
+    cfg = DeflateEncodeConfig.for_level(n, "stream", "crc32", 3, dict_size=dict_size)
+    r = get_encoder(cfg)(
         jnp.asarray(data), jnp.asarray(lengths), jnp.asarray(finals),
         jnp.asarray(halo), jnp.asarray(dict_lens),
     )

@@ -44,3 +44,37 @@ def test_reduce_sums_per_stage():
     assert r["stage_ms"] == pytest.approx({"match": 4.5, "pack": 0.25, "other": 0.001})
     assert r["sort_ms"] == pytest.approx({"match": 4.0})
     assert r["top10"][0] == {"op": "a", "stage": "match", "ms": 4.0, "launches": 2}
+
+
+# the shapes of XLA:GPU's sort ops in a compiled module's text
+_GPU_HLO = """\
+%fused_computation.3 (param_0.3: u32[4,8]) -> (u32[4,8], s32[4,8]) {
+  %iota.1 = s32[4,8]{1,0} iota(), iota_dimension=1
+  ROOT %sort.2 = (u32[4,8]{1,0}, s32[4,8]{1,0}) sort(%param_0.3, %iota.1), dimensions={1}, to_apply=%cmp
+}
+
+%fused_add (p0: u32[4,8]) -> u32[4,8] {
+  ROOT %add.1 = u32[4,8]{1,0} add(%p0, %p0)
+}
+
+ENTRY %main.1 (Arg_0.1: u32[4,8]) -> u32[4,8] {
+  %fusion.18 = (u32[4,8]{1,0}, s32[4,8]{1,0}) fusion(%Arg_0.1), kind=kCustom, calls=%fused_computation.3, metadata={op_name="jit(run)/match/sort"}
+  %custom-call.3 = (u32[4,8]{1,0}, u8[64]{0}) custom-call(%Arg_0.1), custom_call_target="__cub$DeviceRadixSort", metadata={op_name="jit(run)/emit/pack/sort"}
+  %loop_add_fusion = u32[4,8]{1,0} fusion(%Arg_0.1), kind=kLoop, calls=%fused_add, metadata={op_name="jit(run)/match/add"}
+  %gemm_fusion.1 = f32[4,8]{1,0} custom-call(%Arg_0.1), custom_call_target="__cublas$gemm", metadata={op_name="jit(run)/emit/dot_general"}
+  ROOT %sort.9 = u32[4,8]{1,0} sort(%Arg_0.1), dimensions={1}, to_apply=%cmp, metadata={op_name="jit(run)/compact/sort"}
+}
+"""
+
+
+@pytest.mark.parametrize("op,want", [
+    ("fusion.18", ("match", True)),
+    ("custom-call.3", ("pack", True)),
+    ("loop_add_fusion", ("match", False)),
+    ("gemm_fusion.1", ("emit", False)),
+    ("sort.9", ("compact", True)),
+])
+def test_sort_ops_counted_alike(op, want):
+    """A sort counts as one whether XLA fused it, CUB runs it, or it
+    stands alone, at every stage."""
+    assert ts.op_stages(_GPU_HLO)[op] == want
